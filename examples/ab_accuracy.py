@@ -1,6 +1,6 @@
 """Accuracy A/B: windowed draws (window 0 vs 64) x last-hop dedup
-(lane-aligned vs exact), same step budget — settles whether the TPU fast
-paths cost model quality (round-2 review, Weak #3).
+(lane-aligned vs exact), same step budget — settles whether the fast
+sampling paths cost model quality (round-2 review, Weak #3).
 
 Trains GraphSAGE on a synthetic products-scale graph with LEARNABLE
 structure (class-clustered features AND homophilous edges so multi-hop

@@ -3,18 +3,18 @@
 Runs the full clique-cached training configuration (host features + host
 topology, the billion-edge residency) at 1/2/4/8 devices and reports
 edges/s, scaling efficiency vs 1 device, feature/topology hit rates, and
-the EXACT per-step ICI bytes each device moves through the cache
+the EXACT per-step bytes each device moves through the cache
 collectives (static shapes make the accounting closed-form —
 CliqueFeatureCache.collective_bytes / CliqueTopoCache.collective_bytes).
 
-This is the harness BASELINE.md's ">=70% scaling efficiency" target runs
-on the day real multi-chip hardware exists. On this environment it runs
-on the virtual 8-CPU mesh (xla_force_host_platform_device_count), so the
-absolute edges/s and the efficiency numbers characterize the CPU
-backend, NOT TPU ICI — the collective-bytes columns are
-hardware-independent and exact. DCN caveat: a multi-HOST mesh adds a
-"host" axis whose all_to_alls ride DCN; per-hop request coalescing
-across that axis is not modeled here.
+This is the harness for BASELINE.md's ">=70% scaling efficiency" target.
+It runs on the virtual 8-CPU mesh (it sets JAX_PLATFORMS=cpu and
+xla_force_host_platform_device_count itself), so the absolute edges/s and
+the efficiency numbers characterize the CPU backend, not NVLink — the
+collective-bytes columns are hardware-independent and exact.
+Multi-host caveat: a multi-HOST mesh adds a "host" axis whose all_to_alls
+ride the network; per-hop request coalescing across that axis is not
+modeled here.
 
 Usage:
   XLA_FLAGS=--xla_force_host_platform_device_count=8 JAX_PLATFORMS=cpu \
@@ -94,7 +94,7 @@ def main():
             "feat_hit_rate": round(
                 int(t.last_feat_hits) / max(int(t.last_slots), 1), 3),
         }
-        # exact per-device per-step ICI bytes through the cache collectives
+        # exact per-device per-step bytes through the cache collectives
         if t._use_clique:
             fb = t.feature_source.collective_bytes(
                 t.sampler_t.max_ids,

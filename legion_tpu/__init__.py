@@ -1,9 +1,9 @@
-"""legion_tpu — a TPU-native mini-batch GNN training framework.
+"""legion_tpu — a JAX mini-batch GNN training framework for NVIDIA GPUs.
 
 A from-scratch rebuild of the capabilities of RC4ML/Legion (USENIX ATC'23:
 "Automatically Pushing the Envelope of Multi-GPU System for Billion-Scale GNN
-Training") designed for TPU hardware: JAX/XLA/Pallas compute, `shard_map` over
-`jax.sharding.Mesh` for multi-chip scale, and a C-native host runtime for IO.
+Training") in JAX/XLA: `shard_map` over `jax.sharding.Mesh` for multi-card
+scale, and a C-native host runtime for IO.
 
 Subsystem map (reference parity, see SURVEY.md):
   - data/       Legion-compatible binary dataset IO + synthetic graphs
@@ -16,12 +16,11 @@ Subsystem map (reference parity, see SURVEY.md):
                 (reference: src/cache/cache.cu)
   - models/     GraphSAGE / GCN / GAT / link-prediction SAGE
                 (reference: training_backend/legion_*.py)
-  - ops/        segment/aggregation ops (XLA forms; measured Pallas
-                alternatives kept as an experiment harness)
+  - ops/        segment/aggregation ops (plain XLA)
   - parallel/   mesh construction, cache groups, collectives
   - pipeline/   async prefetch, train/valid/test scheduling
                 (reference: src/engine/ipc_service.cu — obsoleted by
-                same-process async dispatch on TPU)
+                same-process async dispatch)
   - native/     C++ host runtime (mmap loaders, parallel feature gather,
                 edge-list -> CSR converter)
 
@@ -36,14 +35,15 @@ import jax as _jax
 _jax.config.update("jax_enable_x64", True)
 
 # Persistent compilation cache: sampler/train-step programs at production
-# shapes take minutes to compile (XLA TPU scatter lowering is heavy); cache
-# executables across processes. Override location with LEGION_TPU_CACHE_DIR,
-# disable with LEGION_TPU_CACHE_DIR="".
-_cache_dir = _os.environ.get(
-    "LEGION_TPU_CACHE_DIR",
-    _os.path.join(_os.path.expanduser("~"), ".cache", "legion_tpu_xla"))
-if _cache_dir:
-    _jax.config.update("jax_compilation_cache_dir", _cache_dir)
+# shapes take long to compile, so executables are cached across processes.
+# JAX_COMPILATION_CACHE_DIR, when set, is JAX's own and wins; otherwise the
+# cache lives at a fixed path inside the checkout (the path is part of the
+# cache key, so it must not move between runs).
+if not _os.environ.get("JAX_COMPILATION_CACHE_DIR"):
+    _jax.config.update(
+        "jax_compilation_cache_dir",
+        _os.path.join(_os.path.dirname(_os.path.dirname(
+            _os.path.abspath(__file__))), ".jax_cache"))
     _jax.config.update("jax_persistent_cache_min_compile_time_secs", 2.0)
 
 from legion_tpu.config import (  # noqa: E402

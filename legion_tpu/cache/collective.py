@@ -1,4 +1,4 @@
-"""Clique-aggregated caches: interleaved shards + ICI peer reads.
+"""Clique-aggregated caches: interleaved shards + NVLink peer reads.
 
 Reference parity: Legion's central contribution is aggregating the cache
 capacity of an NVLink clique — GPU j of a Kg-clique caches the i-th hottest
@@ -9,16 +9,17 @@ sub-CSR partitioned the same way (cache_impl.cuh:89-101) with per-device
 sub-CSR materialization (graph_storage.cu:76-111) and peer reads inside the
 sampling kernel (operator_impl.cu:224-243).
 
-TPU translation: the clique is the mesh's "member" axis. Each member holds a
+JAX translation: the clique is the mesh's "member" axis. Each member holds a
 shard (feature rows [R, F] / sub-CSR rows); the hotness-interleaved layout
 makes request load uniform across members, so per-owner request lists are
 boundable at ~1.5x N/Kg. A lookup becomes:
 
   sort ids by owning member -> fixed-size per-owner request matrices ->
-  all_to_all (requests ride ICI) -> local row gathers / neighbor draws ->
+  all_to_all (requests ride NVLink) -> local row gathers / neighbor draws ->
   all_to_all back -> unsort.  Overflowing or uncached ids fall back to the
-  host store — via pure_callback inside the program (CPU/test runtimes) or
-  via the trainer's staged miss pipeline (real TPU, train.py).
+  host store — via pure_callback inside the program
+  (host_transfer="callback") or via the trainer's staged miss pipeline
+  (host_transfer="staged", train.py).
 
 Use inside shard_map over the ("clique", "member") mesh; `member_rows` /
 `member_topo` is the caller's per-member shard of the sharded cache array.
@@ -144,7 +145,7 @@ class CliqueFeatureCache:
 
     def collective_bytes(self, n_ids: int, bytes_per_feat: int = 2
                          ) -> dict:
-        """Per-device ICI bytes for ONE fetch_cached(ids[n_ids]) call:
+        """Per-device collective bytes for ONE fetch_cached(ids[n_ids]) call:
         the all_to_all request (int32 local rows) and response (feature
         rows) volumes, with the off-chip fraction (Kg-1)/Kg — the
         measured-bytes analog of the reference's PCM PCIe counters
@@ -286,10 +287,10 @@ class CliqueTopoCache:
 
     GraphAccess-compatible: `sample_neighbors(frontier, fanout, key)` draws
     uniformly from each frontier vertex's cached row, with the row served
-    by its owning member over ICI (the reference reads peer sub-CSRs over
+    by its owning member over NVLink (the reference reads peer sub-CSRs over
     NVLink inside random_sample, operator_impl.cu:224-243). The draw uses
     the same block-windowed scheme as WindowedCSRAccess: one aligned
-    W-wide block DMA per served row, exact 1/deg per-draw marginals.
+    W-wide block read per served row, exact 1/deg per-draw marginals.
 
     Misses (uncached vertices or request overflow) are drawn by
     `fallback` — another GraphAccess (host callback draws on CPU/test
@@ -370,7 +371,7 @@ class CliqueTopoCache:
         return jnp.where(ok[..., None], cand, -1)
 
     def collective_bytes(self, n_frontier: int, fanout: int) -> dict:
-        """Per-device ICI bytes for ONE lookup(frontier[n_frontier]) call:
+        """Per-device collective bytes for ONE lookup(frontier[n_frontier]) call:
         all_to_all row requests (int32) and drawn-neighbor responses
         (int32 x fanout). See CliqueFeatureCache.collective_bytes."""
         R_req = int(-(-n_frontier * self.slack // self.Kg))

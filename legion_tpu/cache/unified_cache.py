@@ -3,9 +3,9 @@
 Reference parity: UnifiedCache::FillUp (cache.cu:553-611) + the lookup paths
 FindFeat/FindTopo (cache.cu:180-244). Design divergence (SURVEY.md §7): the
 reference needs bucketed-cuckoo hash maps (vendored BGHT) because GPU HBM is
-too precious for |V|-sized tables; on TPU we spend 4 bytes/vertex on direct
-int32 slot tables (slot_map / row_map) — one gather instead of a cuckoo
-probe chain, the single hottest lookup in the system.
+too precious for |V|-sized tables; below 200M vertices we spend 4
+bytes/vertex on direct int32 slot tables (slot_map / row_map) — one gather
+instead of a cuckoo probe chain, the single hottest lookup in the system.
 
 Feature cache:  cache_rows [C_f, F] = features[QF[:C_f]];
                 slot_map[v] = slot or -1            (FeatFillUp parity)
@@ -45,7 +45,7 @@ def _build_feature_cache(features: jax.Array, qf: jax.Array, cap: int):
 def _build_topo_cache(csr_indptr: jax.Array, csr_indices: jax.Array,
                       qt: jax.Array, cap: int, edge_budget: int):
     """Materialize the hot sub-CSR (degree count -> scan -> gather), the
-    TPU analog of TopoFillUp (graph_storage_impl.cuh:27-53)."""
+    analog of TopoFillUp (graph_storage_impl.cuh:27-53)."""
     V = csr_indptr.shape[0] - 1
     hot = qt[:cap]
     deg = (csr_indptr[hot + 1] - csr_indptr[hot]).astype(jnp.int64)
@@ -136,8 +136,7 @@ class UnifiedCache:
             rows = native.gather_rows(
                 np.ascontiguousarray(host_features, np.float32), qf,
                 dtype=feat_dtype)
-            from legion_tpu.utils.layout import put_row_major
-            cache_rows = put_row_major(rows)
+            cache_rows = jax.device_put(rows)
             slot_map = jnp.full((V,), -1, jnp.int32).at[
                 jnp.asarray(qf)].set(
                 jnp.arange(plan.feature_capacity, dtype=jnp.int32))
@@ -201,12 +200,7 @@ class _HostRef:
 
 @jax.tree_util.register_pytree_node_class
 class DeviceFeatureSource(FeatureSource):
-    """All features in HBM (graphs that fit — reference in-memory mode).
-
-    Place the table with utils.layout.put_row_major — the default commit
-    is column-major on this runtime, which makes every consuming step
-    re-copy the whole table.
-    """
+    """All features in HBM (graphs that fit — reference in-memory mode)."""
 
     def __init__(self, features: jax.Array):
         self.features = features
@@ -223,7 +217,7 @@ class DeviceFeatureSource(FeatureSource):
         # zero pad rows (XLA fuses the select into the gather output):
         # every FeatureSource guarantees zeros for invalid ids, which lets
         # the aligned-hop aggregation contract over the fanout axis
-        # UNMASKED on the MXU (ops/hop_agg.py)
+        # UNMASKED (ops/hop_agg.py)
         rows = jnp.where((ids >= 0)[:, None], rows, 0)
         n = jnp.sum(ids >= 0, dtype=jnp.int32)
         return rows, n
@@ -233,7 +227,7 @@ class DeviceFeatureSource(FeatureSource):
 class CachedFeatureSource(FeatureSource):
     """HBM hot-row cache + host-memory fallback.
 
-    The host fallback is the TPU analog of Legion's zero-copy UVA feature
+    The host fallback stands in for Legion's zero-copy UVA feature
     reads over PCIe (multiGPU_feat_cache_lookup's gidx<0 branch,
     cache_impl.cuh:239-272): misses become ONE batched host gather per step
     via pure_callback, overlapped by XLA with the cache-hit gather.

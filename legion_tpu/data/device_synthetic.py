@@ -2,9 +2,8 @@
 
 Builds a power-law graph, features, and labels entirely in HBM with XLA ops
 (random -> inverse-CDF power-law destinations -> sort -> searchsorted CSR).
-A 120M-edge products-scale graph takes ~1s on one TPU chip, with no
-host->device transfer — essential both for benchmarking (BASELINE.md) and on
-hosts where bulk memory is slow.
+A 120M-edge products-scale graph is generated with no host->device
+transfer, which keeps benchmark set-up (BASELINE.md) off the host.
 
 The id scramble uses a multiplicative bijection (x * prime mod V, prime
 coprime to V) instead of a stored permutation, so hot-ranked vertices are

@@ -2,7 +2,7 @@
 
 Reference parity: src/storage/graph_storage.cu (CompleteGraphStorage) holds the
 full CSR in pinned host memory with UVA device pointers; per-GPU sub-CSR caches
-are layered on top. On TPU there is no UVA — residency is explicit:
+are layered on top. Here residency is explicit instead of UVA:
 
   - ``CSRGraph`` (numpy, host): the authoritative storage, mmap-backed or
     in-RAM, playing the role of the pinned host CSR

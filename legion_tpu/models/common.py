@@ -44,7 +44,7 @@ def xavier_uniform_padded(key: jax.Array, logical_in: int, padded_in: int,
                           shape_tail: Tuple[int, ...], gain: float = 1.0,
                           dtype=jnp.float32) -> jax.Array:
     """Xavier init for a weight whose input dim is PADDED (feature table
-    padded to lane-tile multiples, TrainConfig.pad_feature_dim): the first
+    padded to 128-column multiples, TrainConfig.pad_feature_dim): the first
     `logical_in` rows are initialized with the LOGICAL fan-in (exact parity
     with the unpadded model), the pad rows are zero. Pad rows only ever see
     zero activations, so their grads are zero and they stay zero — the
@@ -76,8 +76,7 @@ def dropout(x: jax.Array, rate: float, key: Optional[jax.Array],
     if rate == 0.5 and x.ndim == 2 and x.shape[-1] % 32 == 0:
         # p=1/2 exactly: each RNG bit IS a Bernoulli(1/2) draw — unpack 32
         # masks per generated word instead of one comparison per element
-        # (threefry bit generation dominated dropout cost: measured 1.17
-        # -> ~0.1 ms at [110k, 256] bf16)
+        # (threefry bit generation is the cost of dropout)
         words = jax.random.bits(key, (x.shape[0], x.shape[1] // 32),
                                 jnp.uint32)
         shifts = jnp.arange(32, dtype=jnp.uint32)
@@ -88,7 +87,7 @@ def dropout(x: jax.Array, rate: float, key: Optional[jax.Array],
         # big activations: compare raw u8 bits against a fixed-point
         # threshold instead of jax.random.bernoulli's uniform-f32 path —
         # 4x fewer threefry words and no full-shape f32/u32 temps (0.8G
-        # per dropout at products-scale GAT, where they OOM'd the chip).
+        # per dropout at products-scale GAT).
         # keep quantizes to 1/256; dividing by the QUANTIZED keep makes
         # the estimator exactly unbiased at the realized rate.
         kq = min(max(round(keep * 256), 1), 255)
@@ -104,7 +103,7 @@ def make_model(train_cfg: TrainConfig, sampler_cfg: SamplerConfig,
                in_dim_pad: Optional[int] = None):
     """Factory mirroring the reference's per-model launcher scripts.
     in_dim_pad: physical width of the feature rows when the table is
-    padded to lane-tile multiples (TrainConfig.pad_feature_dim)."""
+    padded to 128-column multiples (TrainConfig.pad_feature_dim)."""
     from legion_tpu.models.graphsage import GraphSAGE
     from legion_tpu.models.gcn import GCN
     from legion_tpu.models.gat import GAT

@@ -35,7 +35,7 @@ def gat_layer_aligned_streaming(params, h_src: jax.Array,
                                 rng: Optional[jax.Array] = None,
                                 compute_dtype=None) -> jax.Array:
     """Multi-head GATConv for a LANE-ALIGNED hop via the projection
-    commute — the structure this layer wants on TPU.
+    commute.
 
     Both halves of GAT attention commute with the per-head linear map:
 
@@ -43,11 +43,9 @@ def gat_layer_aligned_streaming(params, h_src: jax.Array,
         output:  sum_f alpha_f (x_f W_h)       = (sum_f alpha_f x_f) W_h
 
     so the [E, heads*hidden] projected tensor z — 4.2GB bf16 at products
-    scale, whose per-edge 4KB-row gathers (~65ns/row, byte-bound) and
-    backward scatter-adds made the dedup'd path run at 0.7 s/step, and
-    whose chunk-recompute scan still paid ~16GB of f32 accumulator
-    traffic — NEVER EXISTS. The layer is three skinny MXU contractions
-    over the raw d_in-wide lanes (static slices, lane-aligned):
+    scale, with per-edge 4KB-row gathers and backward scatter-adds —
+    NEVER EXISTS. The layer is three skinny matrix contractions over the
+    raw d_in-wide lanes (static slices, lane-aligned):
     scores [E, d_in] @ [d_in, H], the fanout-contraction
     alpha[f,i,h] x[f,i,k] -> xw[i,h,k], and xw @ W per head. x is a leaf
     (layer 0), so backward has no scatter anywhere.
@@ -115,9 +113,9 @@ def gat_layer_apply(params, h_src: jax.Array, edge_src: jax.Array,
     ([F, fanout, H]) thanks to the sampler's structured edge layout.
 
     compute_dtype=bfloat16 keeps the projected features z in bf16: at
-    products-scale the layer-0 z is [~480k, 8 x 256] — 3.95G in f32,
-    which together with its backward temps exceeds the 15.75G chip
-    (round-5 OOM). Scores/softmax/aggregation still accumulate f32.
+    products-scale the layer-0 z is [~480k, 8 x 256] — 3.95G in f32
+    before its backward temps. Scores/softmax/aggregation still
+    accumulate f32.
     """
     H, d_out = params["attn_l"].shape
     w = params["w"].reshape(h_src.shape[1], H * d_out)
@@ -126,7 +124,7 @@ def gat_layer_apply(params, h_src: jax.Array, edge_src: jax.Array,
         # cast the WEIGHTS, not the product: h_src(bf16) @ w(f32) would
         # materialize the full f32 [N_src, H*d] projection before any
         # cast (3.68G at products scale), and z * attn(f32) broadcasts
-        # another one. bf16 x bf16 dots still accumulate f32 on the MXU;
+        # another one. bf16 x bf16 dots still accumulate f32;
         # the attention score sums accumulate f32 explicitly below.
         w = w.astype(compute_dtype)
         al = al.astype(compute_dtype)
@@ -209,9 +207,8 @@ class GAT:
             h = dropout(h, self.feat_drop, kf, train)
             ao = self.cfg.aligned_hop_offset(k)
             if ao is not None:
-                # lane-aligned hop: the streaming two-pass layer — static
-                # slices + per-chunk MXU recompute, no z materialization,
-                # no gathers/scatters (the production GAT fast path)
+                # lane-aligned hop: the projection-commute layer — static
+                # slices, no z materialization, no gathers/scatters
                 out = gat_layer_aligned_streaming(
                     params["layers"][i], h[:self.S[k + 1]],
                     batch.edge_src[k], self.cfg.fanouts[k],

@@ -29,6 +29,8 @@ def gcn_layer_apply(params, h_src: jax.Array, edge_src: jax.Array,
                     aligned_offset=None) -> jax.Array:
     n_src = h_src.shape[0]
     valid = edge_src >= 0
+    # degrees count in float32 whatever the feature dtype: a bf16 sum of
+    # ones stops growing at 256, which mis-normalizes every hub
     if aligned_offset is not None:
         # lane-aligned hop: each src slot carries exactly its own lane's
         # edge, so the block-local out-degree is the validity indicator —
@@ -38,12 +40,12 @@ def gcn_layer_apply(params, h_src: jax.Array, edge_src: jax.Array,
         # normalization parity keep dedup_last_hop=True; SAGE/GAT/lp_sage
         # are invariant either way (per-dst mean/softmax over the same
         # multiset).
-        window = jnp.zeros((n_src,), h_src.dtype).at[
+        window = jnp.zeros((n_src,), jnp.float32).at[
             aligned_offset:aligned_offset + edge_src.shape[0]].set(
-            valid.astype(h_src.dtype))
+            valid.astype(jnp.float32))
         inv_sqrt_out = window
     else:
-        ones = jnp.ones(edge_src.shape, dtype=h_src.dtype)
+        ones = jnp.ones(edge_src.shape, dtype=jnp.float32)
         # block-local out-degree needs a true segment-sum (src order is
         # unstructured); in-degree falls out of the dense hop aggregation
         out_deg = masked_segment_sum(ones, jnp.where(valid, edge_src, -1),

@@ -37,17 +37,15 @@ def sage_layer_apply(params, h_src: jax.Array, edge_src: jax.Array,
     When the layer SHRINKS rows (d_in > d_out) and the hop needs a real
     per-edge gather, the linear W_neigh projection commutes with the mean:
     project h_src first, then gather/mean d_out-wide rows — the per-edge
-    row gather and its backward scatter-add (the single hottest backward
-    op, measured 7.6ms at [200k, 256] f32) move d_out/d_in of the bytes.
+    row gather and its backward scatter-add move d_out/d_in of the bytes.
     Math is identical: mean(h W) == mean(h) W.
     """
     h_dst = h_src[:num_dst]
     d_in, d_out = params["w_neigh"].shape
-    # project to a width PADDED up to 128 lanes: gathers of rows narrower
-    # than ~256B fall off the fast row-DMA path (measured 21.5 vs 8.3
-    # ns/row), and the backward scatter-add cost scales with width
-    # (measured 22 vs 36 ns/row at 128 vs 256 f32) — so a 47-class head
-    # projects to 128 zero-padded lanes, not 47 and not 256. Zero pad
+    # project to a width PADDED up to 128 columns: the per-edge gather and
+    # its backward scatter-add move whole rows, so a 47-class head
+    # projects to 128 zero-padded columns, not 256 (narrow rows are kept
+    # at 128 for aligned row reads; not measured on the GPU yet). Zero pad
     # columns contribute nothing; the slice after the mean restores d_out.
     dp = max(-(-d_out // 128) * 128, 128)
     if aligned_offset is None and d_in > dp:

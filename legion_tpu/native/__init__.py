@@ -1,9 +1,11 @@
 """ctypes bindings for the C++ host runtime (legion_native.cpp).
 
-Auto-builds the shared library on first import when a compiler is present
-(the image ships g++; pybind11 is not available, hence the C ABI + ctypes).
-Falls back to NumPy implementations when the build is impossible so the
-pure-Python path keeps working.
+Builds the shared library from src/legion_native.cpp on first use (g++;
+C ABI + ctypes, no pybind11). The binary is a build output, never shipped:
+it is compiled with -march=native for the host it runs on, and rebuilt
+whenever the source is newer. Falls back to NumPy implementations when no
+compiler is present, so the pure-Python path keeps working;
+`build_error()` says why the build failed.
 """
 
 from __future__ import annotations
@@ -20,17 +22,33 @@ _SRC = os.path.join(_HERE, "src", "legion_native.cpp")
 _LIB = os.path.join(_HERE, "liblegion_native.so")
 
 _lib: Optional[ctypes.CDLL] = None
+_build_error: Optional[str] = None
 
 
 def _build() -> bool:
+    """Compile into a private temp file, then rename into place: several
+    processes (e.g. test workers) may build at once."""
+    global _build_error
+    tmp = f"{_LIB}.{os.getpid()}.tmp"
     try:
         subprocess.run(
             ["g++", "-O3", "-march=native", "-std=c++17", "-shared",
-             "-fPIC", "-pthread", _SRC, "-o", _LIB],
-            check=True, capture_output=True, timeout=300)
+             "-fPIC", "-pthread", _SRC, "-o", tmp],
+            check=True, capture_output=True, text=True, timeout=300)
+        os.replace(tmp, _LIB)
         return True
-    except Exception:
-        return False
+    except subprocess.CalledProcessError as e:
+        _build_error = e.stderr[-2000:]
+    except Exception as e:
+        _build_error = repr(e)
+    if os.path.exists(tmp):
+        os.remove(tmp)
+    return False
+
+
+def build_error() -> Optional[str]:
+    """Why the last build attempt failed (None if it did not fail)."""
+    return _build_error
 
 
 def _load() -> Optional[ctypes.CDLL]:

@@ -1,6 +1,6 @@
 // legion_native: C++ host runtime for legion_tpu.
 //
-// TPU-native equivalents of the reference's host-side machinery:
+// Equivalents of the reference's host-side machinery:
 //   - gather_rows_f32: multithreaded feature-row gather from host memory —
 //     the role of Legion's zero-copy UVA feature reads over PCIe
 //     (multiGPU_feat_cache_lookup host branch, cache_impl.cuh:239-272),
@@ -81,10 +81,8 @@ void lg_gather_rows_f32(const float* src, int64_t n_rows, int64_t row_len,
   });
 }
 
-// Gather rows converting f32 -> bf16 in flight (truncation). Halves the
-// host->device bytes of the staged miss path — on a PCIe host that's the
-// difference between ~12ms and ~6ms per step of transfer; over slow links
-// (tunneled dev runtimes) it is the dominant cost.
+// Gather rows converting f32 -> bf16 in flight (round-to-nearest-even).
+// Halves the host->device bytes of the host-feature miss paths.
 void lg_gather_rows_bf16(const float* src, int64_t n_rows, int64_t row_len,
                          const int32_t* ids, int64_t n_ids, uint16_t* out,
                          int n_threads) {

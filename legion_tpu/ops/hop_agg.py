@@ -3,15 +3,15 @@
 The sampler's hop-k edge list is STRUCTURED (sampler.py SampleBatch) and
 FANOUT-MAJOR: draw f of frontier slot i occupies lane f * F + i, so its dst
 is ``hop_offset + lane % F``. Aggregation by destination therefore reduces
-to `fanout` tile-aligned [F, d] slice-adds — no scatter, no sort, no segment
-ids, and (critically) NO relayout: splitting the LEADING axis of an [E, d]
-array into [fanout, F, d] keeps the (sublane, lane) tiles intact, while the
-frontier-major [F, fanout, d] split would shear every tile (measured ~6 ms
-per step at bench shapes — the single largest hidden cost found in round 4).
+to `fanout` contiguous [F, d] slice-adds — no scatter, no sort, no segment
+ids, and no relayout: splitting the LEADING axis of an [E, d] array into
+[fanout, F, d] keeps each row contiguous, while the frontier-major
+[F, fanout, d] split would need a transpose.
 
-XLA TPU scatter-adds with duplicate indices serialize and were measured
-~10x slower than this path. The generic masked segment ops (ops/segment.py)
-remain for edge lists without this structure.
+Scatter-adds with duplicate indices need atomics (GPU) or serialise, so
+this path avoids them; how it compares with a segment-sum on the GPU is
+not measured yet. The generic masked segment ops (ops/segment.py) remain
+for edge lists without this structure.
 """
 
 from __future__ import annotations
@@ -64,8 +64,7 @@ def hop_neighbor_sum(h_src: jax.Array, src_l: jax.Array, fanout: int,
     Returns (sum [num_dst, d], count [num_dst]).
 
     The reduction is `fanout` masked slice-adds over the leading axis —
-    pure VPU work on intact tiles that fuses with the feature-gather
-    producer."""
+    elementwise work that fuses with the feature-gather producer."""
     msgs, valid = hop_gather_msgs(h_src, src_l, fanout, aligned_offset)
     # accumulate in f32 so bf16 feature storage loses no precision
     acc = jnp.float32 if msgs.dtype == jnp.bfloat16 else msgs.dtype
@@ -85,10 +84,11 @@ def hop_neighbor_mean(h_src: jax.Array, src_l: jax.Array, fanout: int,
 
 # above this many edge-message elements (fanout * F * H * d) the dense
 # [fanout, F, H, d] materialization is replaced by a fanout-chunked scan:
-# the full tensor costs ~8.4GB f32 at products-scale GAT (measured 34.1G
-# program HBM with backward temps vs the chip's 15.75G), while DGL's fused
-# u_mul_e SpMM never materializes it — the scan is the XLA equivalent,
-# peaking at one [F, H, d] slice per step.
+# the full tensor costs ~8.4GB f32 at products-scale GAT before backward
+# temps, while DGL's fused u_mul_e SpMM never materializes it — the scan
+# is the XLA equivalent, peaking at one [F, H, d] slice per step. The
+# limit was sized for a 16 GB device; an 80 GB card could hold the dense
+# form (a perf decision for the benchmark, not made yet).
 _ATTN_DENSE_LIMIT = 64 * 1024 * 1024
 
 
@@ -135,8 +135,7 @@ def hop_softmax_attention(z: jax.Array, scores: jax.Array,
     # clipped gather rows they read contribute nothing. The body is
     # rematerialized: without checkpoint the scan saves each chunk's
     # gathered zf for backward — fanout x [F, H*d] residuals re-assemble
-    # the full edge-message tensor this chunking exists to avoid
-    # (products-scale GAT ran out of HBM at run time, round 5).
+    # the full edge-message tensor this chunking exists to avoid.
     @jax.checkpoint
     def body(acc, inputs):
         alpha_f, src_f, f = inputs

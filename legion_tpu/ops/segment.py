@@ -1,15 +1,10 @@
 """Masked segment ops — the aggregation primitives for message passing.
 
-These are the TPU equivalents of DGL's SpMM/segment reductions that the
+These are the XLA equivalents of DGL's SpMM/segment reductions that the
 reference's models lean on (training_backend/legion_graphsage.py:37-64 uses
 dgl.nn.SAGEConv whose hot path is copy_u/mean). Convention throughout:
 segment id -1 == padded/invalid edge, dropped from every reduction (mirrors
 the reference's -1 padded id buffers, operator_impl.cu:40-43).
-
-These XLA forms ARE the production path: the Pallas per-row-DMA gather and
-VMEM-accumulating segment-sum in ops/pallas_segment.py were measured slower
-on the target chip (see its module docstring + docs/DESIGN.md), so they
-remain an experiment harness, not the default.
 """
 
 from __future__ import annotations

@@ -1,11 +1,11 @@
 """Device mesh construction.
 
 Legion's GPU topology (Kc NVLink cliques x Kg GPUs, detected via nvidia-smi
-in legion_server.py:23-37) maps to a 2-axis TPU mesh:
+in legion_server.py:23-37) maps to a 2-axis device mesh:
 
   axis "clique" (Kc): independent cache groups — data-parallel across, no
       intra-step communication except gradient reduction;
-  axis "member" (Kg): ICI neighbors sharing an aggregated cache — feature
+  axis "member" (Kg): NVLink peers sharing an aggregated cache — feature
       cache interleaved over this axis (cache_impl.cuh:104-109), reads via
       collective gathers.
 
@@ -32,10 +32,10 @@ def make_mesh(config: Optional[MeshConfig] = None,
               num_hosts: int = 1) -> Mesh:
     """Build the device mesh.
 
-    Single host: ("clique", "member") — both ICI. Multi-host: a leading
-    "host" axis (DCN) is added; per-host graph partitions and seed shards
+    Single host: ("clique", "member") — both NVLink. Multi-host: a leading
+    "host" axis (the network) is added; per-host graph partitions and seed shards
     ride it, gradients pmean across it, cache collectives stay inside the
-    ICI axes. Under `jax.distributed` each process contributes its local
+    single-host axes. Under `jax.distributed` each process contributes its local
     devices; `jax.devices()` already enumerates the global ordering.
     """
     if devices is None:

@@ -1,8 +1,8 @@
-"""Staged host-feature pipeline: the split-program path real TPUs use.
+"""Staged host-feature pipeline: the split-program path.
 
 The reference streams cache-miss feature rows over zero-copy UVA inside
-its kernels (cache_impl.cuh:239-272); TPU runtimes without in-program
-host callbacks split the step instead:
+its kernels (cache_impl.cuh:239-272); instead of an in-program host
+callback (host_transfer="callback") this path splits the step:
 
     [sample + cache lookup + miss compaction]   (device program A)
     C++ parallel host gather of the compacted miss rows + device_put
@@ -24,7 +24,7 @@ the reference's UVA miss branch (operator_impl.cu:224-243).
 
 This class owns every staged-only artifact (compiled programs, miss
 caps, the prefetch future, the gather worker); `Trainer` delegates to it
-when `CacheConfig.host_transfer` resolves to "staged". Interface:
+when `CacheConfig.host_transfer` is "staged". Interface:
 ``train_step(state)``, ``eval_steps[mode](state, bank, ybank)``,
 ``miss_cap``/``eval_miss_cap``, ``close()``.
 """
@@ -146,8 +146,8 @@ class StagedHostPipeline:
         """Program A, shard_map'd over the mesh: sample + cache lookup +
         miss compaction on every device. The cache lookup is the direct
         slot-table gather (single device / UnifiedCache) or the clique
-        collective (CliqueFeatureCache.fetch_cached — requests ride ICI,
-        NO callbacks). Per-device miss ids come back to the host for the
+        collective (CliqueFeatureCache.fetch_cached — requests ride
+        NVLink, NO callbacks). Per-device miss ids come back to the host for the
         staged gather.
 
         When topology is host-resident (graph_access.needs_host_draws),
@@ -193,7 +193,7 @@ class StagedHostPipeline:
 
     def _make_sample_chain(self, sampler, n_steps: int, bs: int, tag: int):
         """Per-hop program splits for HOST-resident topology under staged
-        transfer — the configuration of a real multi-chip billion-edge
+        transfer — the configuration of a real multi-card billion-edge
         run where neither topology nor features fit HBM. The reference
         serves these reads inside its kernels over zero-copy UVA
         (operator_impl.cu:224-243); without in-program callbacks the

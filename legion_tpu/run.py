@@ -5,7 +5,7 @@ The reference launcher writes meta_config, sniffs NVLink cliques out of
 nvidia-smi, and execs the C++ sampling server, while four nearly identical
 torch scripts run the trainers (legion_server.py:39-111,
 legion_graphsage.py:185-207). Here one process does all of it: dataset load,
-mesh construction (the ICI domain is the clique), PreSc, and the fused
+mesh construction (the NVLink domain is the clique), PreSc, and the fused
 train loop.
 
   python -m legion_tpu.run --dataset-path DIR --dataset-name products \
@@ -70,7 +70,7 @@ def build_config(args):
 
 
 def main(argv=None):
-    ap = argparse.ArgumentParser("Legion-TPU server+trainer")
+    ap = argparse.ArgumentParser("Legion server+trainer")
     # reference flags (legion_server.py:114-125)
     ap.add_argument("--dataset_path", "--dataset-path",
                     dest="dataset_path", type=str, default="./dataset")
@@ -88,7 +88,7 @@ def main(argv=None):
     ap.add_argument("--hidden", type=int, default=256)
     ap.add_argument("--dropout", type=float, default=0.5)
     ap.add_argument("--lr", type=float, default=3e-3)
-    # TPU-native knobs
+    # mesh and residency knobs
     ap.add_argument("--devices", type=int, default=0,
                     help="0 = all visible devices")
     ap.add_argument("--clique-size", type=int, default=0,

@@ -2,8 +2,8 @@
 
 The reference's random_sample kernel reads adjacency from three places
 (operator_impl.cu:224-243): the local GPU's cached sub-CSR, a peer GPU's
-cached sub-CSR over NVLink, or the pinned-host full CSR over UVA/PCIe. On
-TPU these become access strategies behind one interface:
+cached sub-CSR over NVLink, or the pinned-host full CSR over UVA/PCIe. Here
+these become access strategies behind one interface:
 
   DeviceCSRAccess : full CSR in HBM (in-memory mode)
   CachedTopoAccess: hot sub-CSR in HBM (UnifiedCache) + batched host
@@ -12,7 +12,8 @@ TPU these become access strategies behind one interface:
                     directly (uniform with replacement) so shapes stay
                     static and host work is O(misses x fanout).
 
-Multi-chip peer reads over ICI live in the cache layer's collective path.
+Multi-card peer reads live in the cache layer's collective path
+(cache/collective.py).
 """
 
 from __future__ import annotations
@@ -130,14 +131,11 @@ class DeviceCSRAccess(GraphAccess):
 
 @jax.tree_util.register_pytree_node_class
 class WindowedCSRAccess(GraphAccess):
-    """HBM CSR with block-windowed draws — the TPU fast path.
+    """HBM CSR with block-windowed draws.
 
-    XLA TPU executes 1-D random gathers element-serialized (~9-15ns per
-    offset, measured) but row gathers from a 2-D table ride a fast DMA
-    path (~8ns per ROW). All `fanout` draws of a frontier vertex come
-    from one contiguous CSR row, so instead of fanout element-gathers per
-    vertex we gather ONE aligned W-wide block of the edge array per
-    vertex and draw inside it:
+    All `fanout` draws of a frontier vertex come from one contiguous CSR
+    row, so instead of fanout element-gathers per vertex we gather ONE
+    aligned W-wide block of the edge array per vertex and draw inside it:
 
       1. r0 ~ U[0, deg) picks the block b = (row_start + r0) // W;
       2. the draws are uniform over I = [row_start, row_end) ∩ block b.
@@ -148,7 +146,8 @@ class WindowedCSRAccess(GraphAccess):
     The difference: one vertex's draws within a step are correlated
     (confined to <= W neighbors); across steps blocks re-randomize. In
     exchange the hop's edge read drops from E_k random offsets to F_k row
-    DMAs (~7x fewer offsets at fanout 10, ~6x measured speedup).
+    reads (fanout times fewer offsets). Whether that wins over exact
+    draws on the GPU is not measured yet (SamplerConfig.neighbor_window).
 
     Layout: `row_pairs` [V, 2] = (row_start, degree) merges the two
     indptr gathers into one row gather; `indices2d` [ceil(E/W), W] is the
@@ -170,7 +169,6 @@ class WindowedCSRAccess(GraphAccess):
     @classmethod
     def from_csr(cls, csr: DeviceCSR, window: int = 64
                  ) -> "WindowedCSRAccess":
-        from legion_tpu.utils.layout import put_row_major, put_with_layout
         assert window & (window - 1) == 0, "window must be a power of two"
         # keep edge offsets in the CSR's own offset dtype: graphs with
         # >= 2**31 edges carry int64 indptr (graph.py downcasts only when
@@ -182,13 +180,7 @@ class WindowedCSRAccess(GraphAccess):
         E = csr.num_edges
         pE = -(-E // window) * window
         flat = jnp.pad(csr.indices, (0, pE - E), constant_values=-1)
-        # explicit placement: the executable prefetches the pair table
-        # column-major into scoped memory and reads the edge blocks
-        # row-major; matching layouts at creation kills per-step re-copies
-        # (utils/layout.py)
-        return cls(put_with_layout(row_pairs, (1, 0)),
-                   put_row_major(flat.reshape(-1, window)),
-                   csr.num_nodes, E)
+        return cls(row_pairs, flat.reshape(-1, window), csr.num_nodes, E)
 
     def tree_flatten(self):
         return ((self.row_pairs, self.indices2d),
@@ -225,7 +217,7 @@ class WindowedCSRAccess(GraphAccess):
         # within-block offsets of the draws, fanout-major
         off = lo[None, :] + jax.random.randint(k1, (fanout, F), 0,
                                                m[None, :], dtype=jnp.int32)
-        rows = self.indices2d[blk]                         # [F, W] row DMA
+        rows = self.indices2d[blk]                         # [F, W] row read
         sel = off[..., None] == jnp.arange(W, dtype=jnp.int32)
         cand = jnp.sum(jnp.where(sel, rows[None, :, :], 0), axis=-1,
                        dtype=jnp.int32)

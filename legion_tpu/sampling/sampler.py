@@ -1,6 +1,6 @@
 """Multi-hop fanout neighbor sampling with static shapes.
 
-TPU-native rebuild of the reference sampling operators
+JAX rebuild of the reference sampling operators
 (src/engine/operator_impl.cu):
 
   - ``batch_generate`` (:27-55)   -> seed registration into the position map
@@ -19,8 +19,8 @@ Everything is compiled under one ``jit``: shapes are the reference's own
 worst-case bounds (server.cu:188-199), pad id is -1 exactly like the CUDA
 kernels (operator_impl.cu:40-43,232-234), and no data-dependent shapes
 anywhere. Two dedup strategies ("map" scatters into a [V] position map —
-Legion's own algorithm; "sort" is a pure sort/scan pipeline sized by
-measured TPU costs), plus a lane-aligned no-dedup mode for the last hop
+Legion's own algorithm; "sort" is a pure sort/scan pipeline with no O(V)
+state), plus a lane-aligned no-dedup mode for the last hop
 (config.dedup_last_hop) that deletes the largest dedup and the first
 aggregation layer's row gather outright.
 
@@ -75,9 +75,9 @@ class SampleBatch:
     # hop_offsets[k] = first local index of hop k's frontier. Hop-k edges
     # are FANOUT-MAJOR: lane f*F_k + i is draw f of frontier slot i, so
     # dst == hop_offsets[k] + lane % F_k — models exploit this to
-    # aggregate with tile-aligned [fanout, F, d] slice reductions instead
+    # aggregate with contiguous [fanout, F, d] slice reductions instead
     # of scatters (the structural consequence of the reference's frontier
-    # rule, re-laid-out for TPU tiling).
+    # rule, laid out fanout-major).
     hop_offsets: jax.Array         # [L] int32
 
     def tree_flatten(self):
@@ -222,10 +222,10 @@ class NeighborSampler:
     def _dedup_sort(self, cand, e_valid, cum, ids, k):
         """Sort-based dedup: NO O(V) state, NO big random gathers/scatters.
 
-        On this TPU, 1M-element sorts cost ~2.5ns/elem while random
-        gathers cost ~9ns/elem and scatters ~5ns/elem (all element-
-        serialized, locality-independent) — so the dedup is restructured
-        as three sorts plus O(n) scans over M = assigned-prefix + cand:
+        The dedup is three sorts plus O(n) scans over
+        M = assigned-prefix + cand, with no scatter into a [V] table
+        (whether this beats the "map" variant's scatters on the GPU is not
+        measured yet):
 
           1. stable sort (id, tag) with assigned entries tagged by their
              position and candidate lanes tagged lane+P: each run of an

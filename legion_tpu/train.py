@@ -3,7 +3,7 @@
 This collapses the reference's three cooperating layers — the sampling server
 hot loop (server.cu:302-332), the CUDA-IPC handoff (ipc_service.cu), and the
 DDP trainer processes (legion_graphsage.py:121-183) — into ONE jitted SPMD
-program per step. On TPU the sampler and model share the chip, so the
+program per step. The sampler and model share the device, so the
 zero-copy process handoff is simply function composition, and DDP+NCCL
 becomes a `lax.pmean` over the mesh.
 
@@ -294,8 +294,6 @@ class Trainer:
                 self.sampler_t = NeighborSampler(scfg, V)
                 self.compact_caps = tuple(caps)
 
-        from legion_tpu.utils.layout import put_row_major
-
         def _feat_cast(arr):
             # bf16 feature storage halves HBM residency and the hot
             # feature-gather bytes; aggregation accumulates in f32
@@ -306,11 +304,10 @@ class Trainer:
                     else arr
             return arr
 
-        # lane-tile padding of the HBM feature table (pure-HBM residency
-        # only): rows start on 128-lane boundaries, putting the per-step
-        # row gather on the fast DMA path (TrainConfig.pad_feature_dim;
-        # measured 5.8 vs 8.3 ns/row at width 128 vs 100). Layer-0 weight
-        # pad rows are zero, so training math is unchanged.
+        # 128-column padding of the HBM feature table (pure-HBM residency
+        # only; TrainConfig.pad_feature_dim): rows start on aligned
+        # boundaries for the per-step row gather. Layer-0 weight pad rows
+        # are zero, so training math is unchanged.
         F_log = meta.feature_dim
         self.feat_pad = -(-F_log // 128) * 128 \
             if config.train.pad_feature_dim and not cache_cfg.enabled \
@@ -322,7 +319,7 @@ class Trainer:
                 df = _feat_cast(dev_feats)
                 if self.feat_pad != F_log:
                     df = jnp.pad(df, ((0, 0), (0, self.feat_pad - F_log)))
-                self.feature_source = DeviceFeatureSource(put_row_major(df))
+                self.feature_source = DeviceFeatureSource(df)
             else:
                 import ml_dtypes
                 hf = host_feats if config.train.compute_dtype != "bfloat16" \
@@ -330,7 +327,7 @@ class Trainer:
                 if self.feat_pad != F_log:
                     hf = np.pad(hf, ((0, 0), (0, self.feat_pad - F_log)))
                 self.feature_source = DeviceFeatureSource(
-                    put_row_major(hf, rep))
+                    jax.device_put(hf, rep))
             return
 
         # topology hotness only matters if topology actually needs caching
@@ -371,11 +368,7 @@ class Trainer:
         if feat_host:
             assert cache.slot_map is not None, (
                 "feature cache budget resolved to zero rows")
-            transfer = cache_cfg.host_transfer
-            if transfer == "auto":
-                transfer = "staged" if jax.default_backend() == "tpu" \
-                    else "callback"
-            if transfer == "staged":
+            if cache_cfg.host_transfer == "staged":
                 # miss rows cross host->device between two programs (no
                 # in-program callback needed — see CacheConfig.host_transfer)
                 assert self.n_dev == 1, (
@@ -390,7 +383,7 @@ class Trainer:
                 self.feature_source = CachedFeatureSource(cache, host_feats)
         else:
             self.feature_source = DeviceFeatureSource(
-                put_row_major(host_feats, rep))
+                jax.device_put(host_feats, rep))
 
     # ------------------------------------------------------------------
     def _setup_multidev_cache(self, plan, feat_host, topo_host, host_feats,
@@ -403,15 +396,14 @@ class Trainer:
         cache_impl.cuh:89-101 + graph_storage.cu:76-111). Across the
         "clique" axis the cache replicates: Kc independent groups.
         Misses fall back to host storage — pure_callback host draws/
-        gathers (CPU/test runtimes), or the trainer's staged miss
-        pipeline for features on real TPU (CacheConfig.host_transfer)."""
+        gathers, or the trainer's staged miss pipeline for features
+        (CacheConfig.host_transfer)."""
         from legion_tpu.cache.collective import (
             CliqueFeatureCache, CliqueTopoCache, HostFallbackAccess,
             build_clique_cache, build_clique_topo)
         from legion_tpu.cache.unified_cache import (DeviceFeatureSource,
                                                     UnifiedCache)
         from legion_tpu.sampling.access import CachedTopoAccess
-        from legion_tpu.utils.layout import put_row_major
         mesh = self.mesh
         V = self.dataset.meta.num_nodes
         # billion-vertex graphs swap the replicated [V] id->slot tables
@@ -469,11 +461,7 @@ class Trainer:
                 jax.device_put(slot_map, rep), host_feats,
                 Kg, R)
             self._use_clique = True
-            transfer = self.config.cache.host_transfer
-            if transfer == "auto":
-                transfer = "staged" if jax.default_backend() == "tpu" \
-                    else "callback"
-            if transfer == "staged":
+            if self.config.cache.host_transfer == "staged":
                 # miss rows cross host->device between program A and B;
                 # the clique collective serves hits INSIDE program A (no
                 # callbacks anywhere) — the multi-chip Legion scenario.
@@ -485,7 +473,7 @@ class Trainer:
                     host_feats, np.float32)
         else:
             self.feature_source = DeviceFeatureSource(
-                put_row_major(host_feats, rep))
+                jax.device_put(host_feats, rep))
 
     # ------------------------------------------------------------------
     def init_state(self, key: Optional[jax.Array] = None) -> Dict:
@@ -812,7 +800,7 @@ class Trainer:
     # ------------------------------------------------------------------
     # ------------------------------------------------------------------
     # Staged host-feature path (CacheConfig.host_transfer == "staged"):
-    # the split-program pipeline real TPUs use — program A (sample +
+    # the split-program pipeline — program A (sample +
     # cache lookup + miss compaction), C++ host gather, program B
     # (assemble + train). Owned by pipeline.staged.StagedHostPipeline;
     # the thin seams below exist so tests can patch the probe and reach

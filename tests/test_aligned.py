@@ -1,6 +1,6 @@
 """Lane-aligned last hop (SamplerConfig.dedup_last_hop=False).
 
-The TPU-fast sampling mode skips dedup on the last hop: each candidate lane
+The lane-aligned sampling mode skips dedup on the last hop: each candidate lane
 becomes its own local slot at position P_last + lane. These tests pin the
 layout contract and prove the training math is unchanged vs the exact
 (deduped) reference semantics — per-dst mean (SAGE) and per-dst softmax

@@ -1,6 +1,7 @@
-"""Model math parity tests: each layer's output is checked allclose against
-an independent, loop-based NumPy implementation of the reference formulas
-(DGL SAGEConv/GraphConv/GATConv semantics per legion_{graphsage,gcn,gat}.py).
+"""Model math parity tests: each model's output is checked allclose against
+the independent NumPy implementation of the reference formulas in
+tests/reference_models.py (DGL SAGEConv/GraphConv/GATConv semantics per
+legion_{graphsage,gcn,gat}.py).
 """
 
 import jax
@@ -12,6 +13,8 @@ from legion_tpu.config import SamplerConfig
 from legion_tpu.models import GAT, GCN, GraphSAGE, LinkPredSAGE
 from legion_tpu.models.common import static_cum_sizes
 from legion_tpu.sampling import NeighborSampler
+from reference_models import gat_forward, gcn_forward, sage_forward, \
+    to_numpy
 
 
 @pytest.fixture(scope="module")
@@ -30,74 +33,14 @@ def sampled(small_dataset):
     return ds, cfg, batch, feats
 
 
-def np_sage_layer(p, h_src, src, dst, num_dst):
-    out = np.zeros((num_dst, p["w_self"].shape[1]), np.float32)
-    for v in range(num_dst):
-        mask = dst == v
-        neigh = h_src[src[mask]]
-        h_n = neigh.mean(0) if mask.any() else np.zeros(h_src.shape[1],
-                                                        np.float32)
-        out[v] = h_src[v] @ p["w_self"] + h_n @ p["w_neigh"] + p["b"]
-    return out
-
-
-def np_gcn_layer(p, h_src, src, dst, num_dst):
-    valid = dst >= 0
-    src_v, dst_v = src[valid], dst[valid]
-    out_deg = np.bincount(src_v, minlength=h_src.shape[0])
-    in_deg = np.bincount(dst_v, minlength=num_dst)
-    hw = h_src @ p["w"]
-    out = np.zeros((num_dst, hw.shape[1]), np.float32)
-    for s, d in zip(src_v, dst_v):
-        out[d] += hw[s] / np.sqrt(out_deg[s])
-    for v in range(num_dst):
-        if in_deg[v] > 0:
-            out[v] /= np.sqrt(in_deg[v])
-    return out + p["b"]
-
-
-def np_gat_layer(p, h_src, src, dst, num_dst, slope=0.2):
-    H, d_out = p["attn_l"].shape
-    z = (h_src @ p["w"].reshape(h_src.shape[1], -1)).reshape(-1, H, d_out)
-    el = (z * p["attn_l"]).sum(-1)
-    er = (z * p["attn_r"]).sum(-1)
-    valid = dst >= 0
-    out = np.zeros((num_dst, H, d_out), np.float32)
-    for v in range(num_dst):
-        mask = valid & (dst == v)
-        if not mask.any():
-            out[v] = p["b"]
-            continue
-        e = el[src[mask]] + er[v]
-        e = np.where(e > 0, e, slope * e)
-        a = np.exp(e - e.max(0))
-        a = a / a.sum(0)
-        out[v] = (z[src[mask]] * a[:, :, None]).sum(0) + p["b"]
-    return out
-
-
-def _np_params(tree):
-    return jax.tree_util.tree_map(np.asarray, tree)
-
-
 def test_sage_parity(sampled):
     ds, cfg, batch, feats = sampled
     model = GraphSAGE(cfg, in_dim=12, hidden_dim=8, num_classes=5)
     params = model.init(jax.random.PRNGKey(1))
     logits = np.asarray(model.apply(params, jnp.asarray(feats), batch))
-    S = static_cum_sizes(cfg)
-    npar = _np_params(params)
-    h = feats
-    L = cfg.num_hops
-    for i in range(L):
-        k = L - 1 - i
-        h = np_sage_layer(npar["layers"][i], h[:S[k + 1]],
-                          np.asarray(batch.edge_src[k]),
-                          np.asarray(batch.edge_dst[k]), S[k])
-        if i != L - 1:
-            h = np.maximum(h, 0)
-    np.testing.assert_allclose(logits, h[:cfg.batch_size], rtol=2e-5,
-                               atol=2e-5)
+    ref = sage_forward(to_numpy(params), feats, batch.edge_src,
+                       batch.edge_dst, static_cum_sizes(cfg), cfg.batch_size)
+    np.testing.assert_allclose(logits, ref, rtol=2e-5, atol=2e-5)
 
 
 def test_gcn_parity(sampled):
@@ -105,19 +48,9 @@ def test_gcn_parity(sampled):
     model = GCN(cfg, in_dim=12, hidden_dim=8, num_classes=5)
     params = model.init(jax.random.PRNGKey(2))
     logits = np.asarray(model.apply(params, jnp.asarray(feats), batch))
-    S = static_cum_sizes(cfg)
-    npar = _np_params(params)
-    h = feats
-    L = cfg.num_hops
-    for i in range(L):
-        k = L - 1 - i
-        h = np_gcn_layer(npar["layers"][i], h[:S[k + 1]],
-                         np.asarray(batch.edge_src[k]),
-                         np.asarray(batch.edge_dst[k]), S[k])
-        if i != L - 1:
-            h = np.maximum(h, 0)
-    np.testing.assert_allclose(logits, h[:cfg.batch_size], rtol=2e-5,
-                               atol=2e-5)
+    ref = gcn_forward(to_numpy(params), feats, batch.edge_src,
+                      batch.edge_dst, static_cum_sizes(cfg), cfg.batch_size)
+    np.testing.assert_allclose(logits, ref, rtol=2e-5, atol=2e-5)
 
 
 def test_gat_chunked_attention_matches_dense(sampled):
@@ -146,23 +79,9 @@ def test_gat_parity(sampled):
                 feat_drop=0.0, attn_drop=0.0)
     params = model.init(jax.random.PRNGKey(3))
     logits = np.asarray(model.apply(params, jnp.asarray(feats), batch))
-    S = static_cum_sizes(cfg)
-    npar = _np_params(params)
-    h = feats
-    L = cfg.num_hops
-    for i in range(L):
-        k = L - 1 - i
-        out = np_gat_layer(npar["layers"][i], h[:S[k + 1]],
-                           np.asarray(batch.edge_src[k]),
-                           np.asarray(batch.edge_dst[k]), S[k])
-        if i != L - 1:
-            out = out.reshape(out.shape[0], -1)
-            out = np.where(out > 0, out, np.expm1(out))  # ELU
-        else:
-            out = out.mean(1)
-        h = out.astype(np.float32)
-    np.testing.assert_allclose(logits, h[:cfg.batch_size], rtol=1e-4,
-                               atol=1e-4)
+    ref = gat_forward(to_numpy(params), feats, batch.edge_src,
+                      batch.edge_dst, static_cum_sizes(cfg), cfg.batch_size)
+    np.testing.assert_allclose(logits, ref, rtol=1e-4, atol=1e-4)
 
 
 def test_lp_sage_loss_and_grad(sampled):
@@ -193,3 +112,24 @@ def test_dropout_active_in_train_mode(sampled):
     d = model.apply(params, jnp.asarray(feats), batch, train=False,
                     rng=jax.random.PRNGKey(12))
     np.testing.assert_allclose(np.asarray(c), np.asarray(d))
+
+
+def test_gcn_degree_normalization_exact_with_bf16_features():
+    """Block degrees above 256 must not saturate when features are bf16:
+    600 edges from one source into one destination."""
+    from legion_tpu.models.gcn import gcn_layer_apply
+    fanout, n_src = 600, 4
+    p = {"w": jnp.asarray(np.random.default_rng(0).standard_normal(
+        (8, 3)), jnp.float32), "b": jnp.zeros((3,), jnp.float32)}
+    h = jnp.asarray(np.random.default_rng(1).standard_normal((n_src, 8)),
+                    jnp.float32)
+    edge_src = jnp.full((fanout,), 2, jnp.int32)    # F = 1 destination
+    f32 = gcn_layer_apply(p, h, edge_src, fanout, jnp.int32(0), 1)
+    bf = gcn_layer_apply(p, h.astype(jnp.bfloat16), edge_src, fanout,
+                         jnp.int32(0), 1)
+    ref = gcn_forward({"layers": [to_numpy(p)]}, np.asarray(h),
+                      [np.asarray(edge_src)], [np.zeros(fanout, np.int32)],
+                      (1, n_src), 1)
+    np.testing.assert_allclose(np.asarray(f32), ref, rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(np.asarray(bf, np.float32), ref, rtol=2e-2,
+                               atol=2e-2)

@@ -1,6 +1,6 @@
 """Multi-host mesh path: a ("host", "clique", "member") mesh (virtual hosts
 over the CPU device pool) must train end-to-end with per-partition seeds
-and clique cache collectives confined to ICI axes."""
+and clique cache collectives confined to the single-host axes."""
 
 import jax
 import numpy as np

@@ -1,8 +1,8 @@
 """Staged host-feature transfer (CacheConfig.host_transfer="staged").
 
 The staged path splits the fused step into sample/lookup and train
-programs with a host gather between them — required on runtimes without
-in-program host callbacks. It must be numerically identical to the
+programs with a host gather between them, so only compacted misses cross
+to the device. It must be numerically identical to the
 callback path: same RNG stream, same assembled feature rows, same losses.
 """
 
@@ -134,7 +134,7 @@ def _cfg_host_topo(ds, transfer, n_dev=4):
 
 
 def test_staged_multidev_host_topology_matches_callback(small_dataset):
-    """The real multi-chip billion-edge configuration: neither topology
+    """The real multi-card billion-edge configuration: neither topology
     nor features fit HBM (topo_residency=host, feature_residency=host),
     Kg=4 clique caches for both, staged transfer. The sample runs as a
     per-hop program chain with C++ host neighbor draws between programs

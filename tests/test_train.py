@@ -134,7 +134,7 @@ def test_fused_steps_exact_equivalence(small_dataset):
 
 
 def test_pad_feature_dim_exact_equivalence(small_dataset):
-    """Lane-tile feature padding (TrainConfig.pad_feature_dim) must be
+    """128-column feature padding (TrainConfig.pad_feature_dim) must be
     math-identical: pad columns are zero and layer-0 pad weight rows are
     zero, so the loss sequence matches the unpadded model exactly."""
     import dataclasses
